@@ -1,21 +1,24 @@
 """ctypes bindings to the native bit-serial runtime (native/dsvbits.cpp).
 
 Builds the shared library on first use (g++ -O3 -shared); the serial
-entropy-decode walk runs native while all per-coefficient math stays on TPU.
+entropy-decode walk runs native while all per-coefficient math stays on the
+device.
 """
 
 import ctypes
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "native" / "dsvbits.cpp"
-_SO = _PKG.parent / "build" / "native" / "libdsvbits.so"
+_BUILD = _PKG.parent / "build" / "native"
 
 _lib = None
+_LIB_LOCK = threading.Lock()  # threads of one process load it once
 
 
 def _compile(src: Path, out: Path):
@@ -27,46 +30,55 @@ def _compile(src: Path, out: Path):
     )
 
 
-def _so_path() -> Path:
-    """Locate or build the shared library.
-
-    Repo layout: build next to the tree. Zip/single-file distribution
-    (tools/make_zipapp.py, the analog of the reference's dsv1.h
-    amalgamation): extract the source from package data and build it
-    once into a per-user cache keyed by content hash.
-    """
-    if _SRC.is_file():
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            _compile(_SRC, _SO)
-        return _SO
+def _built(src_text: str, cache: Path, src: Path | None = None) -> Path:
+    """The library built from src_text, keyed by its content hash: a
+    copied or stale build directory can never supply a library built
+    from other sources. Built once into `cache`, to a temporary path
+    unique to the process and thread, renamed into place, so concurrent
+    first runs never dlopen a partially written library."""
     import hashlib
-    from importlib import resources
-    src_text = (resources.files("dsv1_tpu") / "native"
-                / "dsvbits.cpp").read_text()
     tag = hashlib.sha256(src_text.encode()).hexdigest()[:16]
-    cache = Path(os.environ.get("XDG_CACHE_HOME",
-                                Path.home() / ".cache")) / "dsv1_tpu"
     so = cache / f"libdsvbits-{tag}.so"
     if not so.exists():
         cache.mkdir(parents=True, exist_ok=True)
-        src = cache / f"dsvbits-{tag}.cpp"
-        src.write_text(src_text)
-        # build to a unique temp path, then atomically rename: concurrent
-        # first runs must never dlopen a partially written library
-        tmp = cache / f".libdsvbits-{tag}.{os.getpid()}.so"
+        if src is None:
+            src = cache / f"dsvbits-{tag}.cpp"
+            src.write_text(src_text)
+        tmp = cache / (f".libdsvbits-{tag}.{os.getpid()}."
+                       f"{threading.get_ident()}.so")
         _compile(src, tmp)
         os.replace(tmp, so)
     return so
 
 
+def _so_path() -> Path:
+    """Locate or build the shared library.
+
+    Repo layout: build next to the tree, from the committed source.
+    Zip/single-file distribution (tools/make_zipapp.py, the analog of
+    the reference's dsv1.h amalgamation): extract the source from
+    package data and build it once into a per-user cache.
+    """
+    if _SRC.is_file():
+        return _built(_SRC.read_text(), _BUILD, _SRC)
+    from importlib import resources
+    src_text = (resources.files("dsv1_tpu") / "native"
+                / "dsvbits.cpp").read_text()
+    cache = Path(os.environ.get("XDG_CACHE_HOME",
+                                Path.home() / ".cache")) / "dsv1_tpu"
+    return _built(src_text, cache)
+
+
 def lib():
     global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(str(_so_path()))
-        _lib.dsv1n_parse_hzcc.restype = ctypes.c_int32
-        _lib.dsv1n_pack_picture.restype = ctypes.c_int32
-        _lib.dsv1n_pack_chunk.restype = ctypes.c_int32
-        _lib.dsv1n_parse_picture.restype = ctypes.c_int32
+    with _LIB_LOCK:
+        if _lib is None:
+            so = ctypes.CDLL(str(_so_path()))
+            so.dsv1n_parse_hzcc.restype = ctypes.c_int32
+            so.dsv1n_pack_picture.restype = ctypes.c_int32
+            so.dsv1n_pack_chunk.restype = ctypes.c_int32
+            so.dsv1n_parse_picture.restype = ctypes.c_int32
+            _lib = so
     return _lib
 
 

@@ -22,7 +22,7 @@ from .utils.bitrate import estimate_bitrate
 from .utils.chroma import conv422to420, conv444to422
 from .utils.yuv import read_frame, write_frame
 
-HEADER = "DSV1-TPU codec driver (TPU-native DSV1, reference-compatible)\n"
+HEADER = "DSV1 codec (JAX, reference-compatible)\n"
 
 AUTO_BITRATE = 0
 INP_FMTS = {0: C.SUBSAMP_444, 1: C.SUBSAMP_422, 2: C.SUBSAMP_420,
@@ -165,19 +165,12 @@ def _get(params, name):
     return 0
 
 
-def encode_main(argv) -> int:
-    params = enc_params()
-    opts = _parse(argv, params)
-    if opts is None or "help" in argv:
-        _usage(params, "e")
-        return 1
-    if not opts["inp"] or not opts["out"]:
-        print("inp or out was not specified!")
-        _usage(params, "e")
-        return 1
-    w, h = _get(params, "w"), _get(params, "h")
-    subsamp = _get(params, "fmt")
-    meta = Metadata(w, h, subsamp, _get(params, "fps_num"),
+def encoder_setup(params) -> tuple[Metadata, EncoderConfig]:
+    """Stream metadata and encoder config from parsed encode params,
+    with the reference CLI's derived defaults: auto bitrate, the 3/2 ABR
+    quality pre-boost and stabref auto (dsv_main.c:476-489)."""
+    meta = Metadata(_get(params, "w"), _get(params, "h"),
+                    _get(params, "fmt"), _get(params, "fps_num"),
                     _get(params, "fps_den"), _get(params, "aspect_num"),
                     _get(params, "aspect_den"))
     gop = _get(params, "gop")
@@ -203,6 +196,23 @@ def encode_main(argv) -> int:
         scene_change_delta=_get(params, "schdelta"),
         stable_refresh=stabref, pyramid_levels=_get(params, "pyrlevels"),
         effort=_get(params, "effort"))
+    return meta, cfg
+
+
+def encode_main(argv) -> int:
+    params = enc_params()
+    opts = _parse(argv, params)
+    if opts is None or "help" in argv:
+        _usage(params, "e")
+        return 1
+    if not opts["inp"] or not opts["out"]:
+        print("inp or out was not specified!")
+        _usage(params, "e")
+        return 1
+    w, h = _get(params, "w"), _get(params, "h")
+    subsamp = _get(params, "fmt")
+    meta, cfg = encoder_setup(params)
+    gop, rc_mode = cfg.gop, cfg.rc_mode
     frno = _get(params, "sfr")
     nfr = _get(params, "nfr")
     maxframe = frno + nfr if nfr > 0 else -1
@@ -333,25 +343,14 @@ def decode_main(argv) -> int:
     return 0
 
 
-def _apply_cache_env():
-    """Honor JAX_COMPILATION_CACHE_DIR even when jax was imported before
-    this process's environment was visible to it (jax reads env vars once
-    at import; site hooks may import jax at interpreter startup)."""
-    import os
-    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
-    if path:
-        import jax
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0][:1] not in ("e", "d"):
         print(HEADER)
         print("usage: dsv1-tpu <e|d> [options]")
         return 0
-    _apply_cache_env()
+    from .utils.cache import enable_compile_cache
+    enable_compile_cache()
     if argv[0][0] == "e":
         return encode_main(argv[1:])
     return decode_main(argv[1:])

@@ -5,7 +5,7 @@ The reference compensates block by block: per-block half-pel filtering
 and intra DC fills (bmc.c:256-298), then residual add/sub with +128 bias
 (bmc.c:29-55).
 
-TPU-native design: the half-pel filters are position-invariant, so we
+Design: the half-pel filters are position-invariant, so we
 precompute all four phase variants over the *whole padded plane* once
 (vectorized, in flat C-layout index space so row-crossing edge reads match
 the reference exactly), then build the prediction with a single gather
@@ -14,9 +14,6 @@ images. The per-pixel select covers inter/intra/sub-block-mask cases with
 no data-dependent control flow — ideal for XLA fusion.
 """
 
-from functools import partial
-
-import jax
 import jax.numpy as jnp
 
 from ..constants import (FRAME_BORDER, MASK_ALL_INTRA, MODE_INTER,
@@ -54,9 +51,7 @@ def hpel_variants_luma(img, layout: FrameLayout, c: int):
     du = 9 * (_shift(hp, P, n, 0) + _shift(hp, P, n, s)) - (
         _shift(hp, P, n, -s) + _shift(hp, P, n, 2 * s))
     d8 = jnp.clip((du + 128) >> 8, 0, 255)
-    # flat (4n,) concat, NOT stack+reshape: reshaping a stacked (4, n)
-    # u8 to 1D forces an XLA tiled-layout conversion lowered as four
-    # serial while-loop copies (~0.6 ms/plane at 1080p, measured)
+    # flat (4n,) concat: callers index the variants as one flat array
     return jnp.concatenate(
         [a.astype(jnp.uint8) for a in (a0, v8, h8, d8)])
 
@@ -87,10 +82,9 @@ def _block_avgs(ref_plane, nbh: int, nbv: int, bw: int, bh: int):
     """
     ph, pw = ref_plane.shape
     # uint32 integral image: sums < 2^32 up to 4K planes; modular subtraction
-    # keeps box sums exact. Pad to (8, 128) tile multiples first: XLA:TPU
-    # lowers cumsum over a non-128-multiple minor dim through a serial
-    # while loop (measured 1.1 ms for the 960-wide 1080p chroma plane vs
-    # 0.1 ms vectorized); trailing zeros leave the valid prefix sums
+    # keeps box sums exact. The plane is padded to (8, 128) multiples
+    # before the cumsums (an earlier backend's fast form; whether it
+    # still pays is open); trailing zeros leave the valid prefix sums
     # unchanged.
     pw_p = -(-pw // 128) * 128
     ph_p = -(-ph // 8) * 8
@@ -136,18 +130,11 @@ def _block_avgs(ref_plane, nbh: int, nbv: int, bw: int, bh: int):
 
 def compensate_plane(ref_img, ref_plane, layout: FrameLayout, c: int,
                      blk_w: int, blk_h: int, nbh: int, nbv: int,
-                     modes, mvx, mvy, submask, pallas_ok: bool = False):
+                     modes, mvx, mvy, submask):
     """D.1/D.2 compensate (bmc.c:204-302): build the prediction plane.
 
     ref_img: flat extended reference image; ref_plane: its (h, w) core view.
     Returns the (h, w) uint8 prediction.
-
-    pallas_ok=True routes the prediction build through the MC kernel
-    (ops/pallas_mc.py) when the variants stack fits VMEM — the XLA form
-    below lowers to ~150 dispatch-bound device ops per plane. The
-    variant planes are still computed here (flat-index filters preserve
-    the reference's row-crossing tap reads); only the per-block window
-    fetch + intra fills + select move on-chip.
     """
     p = layout.planes[c]
     ph, pw = p.h, p.w
@@ -164,23 +151,8 @@ def compensate_plane(ref_img, ref_plane, layout: FrameLayout, c: int,
     S = p.stride
     base = flat_base(layout, c)
 
-    if pallas_ok:
-        from .pallas_mc import compensate_plane_pallas, mc_supported
-        if mc_supported(layout, c):
-            dx2_ = (mvx.reshape(nbv, nbh).astype(jnp.int32)) >> sh
-            dy2_ = (mvy.reshape(nbv, nbh).astype(jnp.int32)) >> sv
-            px_ = jnp.clip(jnp.arange(nbh)[None, :] * bw + (dx2_ >> 1),
-                           -FRAME_BORDER, limx)
-            py_ = jnp.clip((jnp.arange(nbv) * bh)[:, None] + (dy2_ >> 1),
-                           -FRAME_BORDER, limy)
-            phase_ = ((dx2_ & 1) << 1) | (dy2_ & 1)
-            return compensate_plane_pallas(
-                vflat, layout, c, bw, bh, nbh, nbv,
-                (modes.reshape(nbv, nbh) == MODE_INTER).astype(jnp.int32),
-                px_, py_, phase_, submask.reshape(nbv, nbh))
-
     # Per-block fields expanded to the pixel grid by static-factor repeats
-    # (dense ops — per-pixel table gathers scalarize on TPU, ops/opt.py).
+    # (dense ops instead of per-pixel table gathers).
     def up(blk2d):
         return jnp.repeat(jnp.repeat(blk2d, bh, axis=0), bw,
                           axis=1)[:ph, :pw]

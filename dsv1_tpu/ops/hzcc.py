@@ -9,7 +9,7 @@ quantization with stable blocks held at high quality (hzcc.c:114-135).
 The encoder overwrites coefficients with their dequantized values as it
 codes — the in-loop reconstruction (hzcc.c:174,227,262).
 
-TPU-native design: the traversal becomes a static permutation table; the
+Design: the traversal becomes a static permutation table; the
 entire quantize + write-back pass is one vectorized gather -> quant ->
 scatter on device (band-sequential only when ceil-rounded band boundaries
 overlap, which the table builder detects). The serial (run, value) symbol
@@ -42,11 +42,11 @@ class TraversalTables:
     n: int
     nbh: int
     nbv: int
-    # per segment: (lvl, oy, ox, sh, sw, row_onehot f32[sh,nbv],
-    #               col_onehot f32[nbh,sw]) — the traversal is a
-    # concatenation of rectangular rasters, so the device encode path
-    # uses static slices + tiny one-hot dots instead of a 150K-element
-    # permutation gather/scatter (which scalarizes on TPU, ops/opt.py)
+    # per segment: (lvl, oy, ox, sh, sw, row_blk i32[sh], col_blk
+    #               i32[sw]) — the traversal is a concatenation of
+    # rectangular rasters, so the device encode path uses static slices
+    # plus a small (sh, sw) block-index gather per band instead of a
+    # 150K-element permutation gather/scatter
     segs: tuple = ()
 
 
@@ -67,7 +67,7 @@ def build_tables(W: int, H: int, nbh: int, nbv: int) -> TraversalTables:
         ys, xs = np.mgrid[0:sh, 0:sw]
         perms.append(((oy + ys) * W + (ox + xs)).ravel().astype(np.int32))
         levels.append(np.full(sh * sw, lvl, np.int8))
-        row_oh = col_oh = None
+        row_blk = col_blk = None
         if lvl >= 0:
             # 14-bit fixed-point block coordinate map (hzcc.c:59-74)
             dbx = (nbh << BLOCK_P) // sw
@@ -75,16 +75,13 @@ def build_tables(W: int, H: int, nbh: int, nbv: int) -> TraversalTables:
             bi = (xs * dbx) >> BLOCK_P
             bj = (ys * dby) >> BLOCK_P
             blks.append((bj * nbh + bi).ravel().astype(np.int32))
-            bi_v = bi[0, :]
-            bj_v = bj[:, 0]
-            row_oh = (bj_v[:, None] == np.arange(nbv)[None, :]) \
-                .astype(np.float32)
-            col_oh = (np.arange(nbh)[:, None] == bi_v[None, :]) \
-                .astype(np.float32)
+            # the block map is separable: row index by y, column by x
+            row_blk = bj[:, 0].astype(np.int32)
+            col_blk = bi[0, :].astype(np.int32)
         else:
             blks.append(np.zeros(sh * sw, np.int32))
         bounds.append(bounds[-1] + sh * sw)
-        segs_out.append((lvl, oy, ox, sh, sw, row_oh, col_oh))
+        segs_out.append((lvl, oy, ox, sh, sw, row_blk, col_blk))
     perm = np.concatenate(perms)
     overlap = np.unique(perm).size != perm.size
     return TraversalTables(
@@ -145,6 +142,14 @@ def tmq4pos(qp, stable):
     return jnp.maximum(t, MINQUANT)
 
 
+def _band_stable(stable2d, row_blk, col_blk):
+    """(sh, sw) stability flags of a band's coefficients: an integer
+    gather of each position's block entry (no float product, so no
+    matmul precision question)."""
+    return jnp.take(jnp.take(stable2d, jnp.asarray(row_blk), axis=0),
+                    jnp.asarray(col_blk), axis=1)
+
+
 def quant_lo(v, q):
     """C.2 lower-frequency quantizer (hzcc.c:94-112)."""
     a = jnp.abs(v) << 1
@@ -197,7 +202,7 @@ def encode_plane_core(coefs, q, is_p, plane_idx: int, stable_blocks,
 
     The traversal is a concatenation of rectangular band rasters, so each
     band is a static slice of the coefficient grid; the per-block adaptive
-    quant map is expanded per band with two tiny one-hot dots. Reading
+    quant map is expanded per band with a small block-index gather. Reading
     from the progressively written-back grid reproduces the reference's
     sequential band order even when odd ceil dims make bands alias
     (hzcc.c:174,227,262 write-back visible to later positions).
@@ -208,16 +213,15 @@ def encode_plane_core(coefs, q, is_p, plane_idx: int, stable_blocks,
     work = _set00(coefs, 0)  # hzcc.c:171 src[0] = 0
     qp_ll, qp0, qp1, qp2, qp2h = frame_quants(q, is_p, plane_idx)
     stable2d = jnp.asarray(stable_blocks, jnp.int32) \
-        .reshape(tables.nbv, tables.nbh).astype(jnp.float32)
+        .reshape(tables.nbv, tables.nbh)
     qparts = []
-    for (lvl, oy, ox, sh, sw, row_oh, col_oh) in tables.segs:
+    for (lvl, oy, ox, sh, sw, row_blk, col_blk) in tables.segs:
         vals = work[oy:oy + sh, ox:ox + sw]
         if lvl == -1:
             qv = quant_lo(vals, qp_ll)
             wb = dequant_lo(qv, qp_ll)
         else:
-            st = (jnp.asarray(row_oh) @ stable2d @ jnp.asarray(col_oh)) \
-                .astype(jnp.int32)  # (sh, sw), exact small ints
+            st = _band_stable(stable2d, row_blk, col_blk)
             if lvl < MAXLVL - 1:
                 tmq = tmq4pos(qp0 if lvl == 0 else qp1, st)
                 qv = quant_lo(vals, tmq)
@@ -244,15 +248,14 @@ def dequant_plane_grid(qgrid, dc, q, is_p, plane_idx: int, stable_blocks,
     qgrid = jnp.asarray(qgrid, jnp.int32)
     qp_ll, qp0, qp1, qp2, qp2h = frame_quants(q, is_p, plane_idx)
     stable2d = jnp.asarray(stable_blocks, jnp.int32) \
-        .reshape(tables.nbv, tables.nbh).astype(jnp.float32)
+        .reshape(tables.nbv, tables.nbh)
     out = jnp.zeros_like(qgrid)
-    for (lvl, oy, ox, sh, sw, row_oh, col_oh) in tables.segs:
+    for (lvl, oy, ox, sh, sw, row_blk, col_blk) in tables.segs:
         vals = qgrid[oy:oy + sh, ox:ox + sw]
         if lvl == -1:
             dq = dequant_lo(vals, qp_ll)
         else:
-            st = (jnp.asarray(row_oh) @ stable2d @ jnp.asarray(col_oh)) \
-                .astype(jnp.int32)
+            st = _band_stable(stable2d, row_blk, col_blk)
             if lvl < MAXLVL - 1:
                 dq = dequant_lo(vals, tmq4pos(qp0 if lvl == 0 else qp1, st))
             else:
@@ -379,12 +382,11 @@ def compact_sparse_p(qv, cap_div: int = 256):
     cumsum + searchsorted instead of top_k: the k-th nonzero's position
     is the first index where the running nonzero count reaches k, so a
     batched binary search over the cumsum gives all K positions — no
-    sort. On v5e this replaces top_k's full O(n) pair sort (2.6 ms for
-    a 1080p plane) with one reduce-window cumsum (0.4 ms) plus
-    K x log2(n) search gathers (~1 ms at K = n/256); identical outputs
-    (verified elementwise vs the top_k form). Runs and values ship as
-    16-bit (the D2H link runs at ~25-45 MB/s with ~25ms/fetch); range
-    overflow falls back to the dense path like cap overflow.
+    sort. This replaces top_k's full O(n) pair sort with one cumsum
+    plus K x log2(n) search gathers; identical outputs (verified
+    elementwise vs the top_k form). Runs and values ship as 16-bit to
+    halve the D2H copy; range overflow falls back to the dense path
+    like cap overflow.
     cap_div: cap = n/cap_div (sparse_cap_div picks it from the quant)."""
     n = qv.shape[0]
     K = min(n, max(256, n // cap_div))

@@ -7,15 +7,13 @@ for level 1 of intra frames (sbt.c:90-265). The inverse for luma applies a
 smoothing filter that nudges LH/HL toward the local LL gradient bounded by
 ±hqp (sbt.c:437-574).
 
-TPU-native design: the reference's in-place scalar loops with a global temp
-buffer become pure functions over (H, W) int32 arrays, but — unlike the
-in-place C — the decomposition CARRIES the active LL region between levels
-instead of updating the top-left corner of the full array. The in-place
-quadrant updates (`at[...].set` on strided views) are pathological on TPU:
-a single full-res level's scatters cost ~21 ms at 1080p while the same
-math as strided `lax.slice` reads + concatenate assembly costs ~0.5 ms
-(measured on v5e, tools/devtime.py — dynamic-update-slice with stride-2
-windows defeats XLA's layout tiling). So:
+Design: the reference's in-place scalar loops with a global temp buffer
+become pure functions over (H, W) int32 arrays, but — unlike the in-place
+C — the decomposition CARRIES the active LL region between levels instead
+of updating the top-left corner of the full array. In-place quadrant
+updates (`at[...].set` on strided views) lower to strided scatters, while
+the same math as strided `lax.slice` reads + concatenate assembly is
+plain dense data movement. So:
 
 - forward: each level deinterleaves the carried region with stride-2
   slices, emits (LH, HL, HH) pieces, and carries LL; the canonical
@@ -67,8 +65,8 @@ for _k in range(64):
 
 
 def _col_phases(a):
-    """(even, odd) column phases via one f32 MXU contraction (same
-    rationale and exactness bound as _col_pairs)."""
+    """(even, odd) column phases via one f32 contraction against a 0/1
+    matrix (same exactness bound as _col_pairs)."""
     r, n = a.shape
     wp = -(-n // 128) * 128
     if wp != n:
@@ -83,15 +81,16 @@ def _col_phases(a):
 
 
 def _col_pairs(rp):
-    """(sum, diff) of adjacent column pairs via one f32 MXU contraction.
+    """(sum, diff) of adjacent column pairs via one f32 contraction.
 
-    Column-strided lax.slice extraction costs ~0.12 ms per phase for a
-    1080p plane (non-contiguous lane access); one einsum against the
-    static ±1 matrix produces both halves in ~0.05 ms. Exact: inputs
-    are integers (pixel-derived coefficients stay well under 2^24 at
-    every level that takes this path — |coef| <= 255 entering level 1,
-    growing ~x3.2/level under the 4/5 LL scaling), products are
-    ±1-weighted, and f32 represents all integers < 2^24 exactly.
+    One einsum against the static ±1 matrix produces both halves in
+    place of two column-strided slices (whether this beats the strided
+    form on a GPU is an open measurement). Exact: inputs are integers
+    (pixel-derived coefficients stay well under 2^24 at every level
+    that takes this path — |coef| <= 255 entering level 1, growing
+    ~x3.2/level under the 4/5 LL scaling), products are ±1-weighted,
+    f32 represents all integers < 2^24 exactly, and HIGHEST precision
+    keeps full f32 products (no TF32 or bf16 passes).
 
     rp: (he, we) int32, we even. Returns (s, d) of shape (he, we//2).
     """
@@ -100,9 +99,8 @@ def _col_pairs(rp):
     if wp != we:
         rp = jnp.pad(rp, ((0, 0), (0, wp - we)))
     a = rp.reshape(he, wp // 128, 128).astype(jnp.float32)
-    # HIGHEST precision: the TPU default lowers f32 matmuls through the
-    # 3-pass bf16 decomposition, which rounds large integer sums (broke
-    # 1080p byte-identity); the 6-pass form is exact for f32 inputs
+    # HIGHEST precision: a lower-precision f32 matmul (TF32 on a GPU,
+    # bf16 passes elsewhere) rounds large integer sums
     out = jnp.einsum("hbw,wk->hbk", a, jnp.asarray(_COLM),
                      preferred_element_type=jnp.float32,
                      precision=lax.Precision.HIGHEST).astype(jnp.int32)
@@ -112,7 +110,7 @@ def _col_pairs(rp):
 
 
 def _slice2r(a, r0: int):
-    """Stride-2 row extraction (cheap — sublane axis; see _slice2)."""
+    """Stride-2 row extraction (a row-strided slice; see _slice2)."""
     he, we = a.shape
     return lax.slice(a, (r0, 0), (he, we), (2, 1))
 
@@ -121,8 +119,7 @@ def _slice2(a, r0: int, c0: int):
     """Stride-2 phase extraction via lax.slice.
 
     `a[r0::2, c0::2]` getitem lowers to a full elementwise GATHER (one
-    (h/2, w/2, 2) index tensor per phase) — ~21 ms for a 1080p plane on
-    v5e vs 0.6 ms for the identical lax.slice (measured, tools/devtime).
+    (h/2, w/2, 2) index tensor per phase); lax.slice is a strided copy.
     a must have even dims.
     """
     he, we = a.shape
@@ -178,8 +175,8 @@ def _haar_fwd_region(r, lvl: int, is_i):
     fw, fh = ws // 2, hs // 2
     rp = _pad_even(r, ws, hs)
     if ws >= 256:
-        # large levels: column pairing on the MXU (see _col_pairs),
-        # rows via cheap sublane-strided slices
+        # large levels: column pairing as a matrix contraction (see
+        # _col_pairs), rows via row-strided slices
         cs, cd = _col_pairs(rp)
         s0, s1 = _slice2r(cs, 0), _slice2r(cs, 1)
         d0, d1 = _slice2r(cd, 0), _slice2r(cd, 1)
@@ -226,9 +223,8 @@ def _interleave2x2(a00, a01, a10, a11):
 def _b4t_fwd_axis(a, axis: int):
     """C.3.2.1 forward B4T along an axis (even length; sbt.c:90-126)."""
     if axis == 0:
-        # native row form — a full transpose of a 1080p plane is an
-        # expensive tiled-layout conversion; row phases are cheap
-        # sublane-strided slices
+        # native row form — no transpose of the plane; row phases are
+        # row-strided slices
         n = a.shape[0]
         assert n % 2 == 0, "B4T requires even dimensions"
         even = _slice2r(a, 0)
@@ -241,7 +237,7 @@ def _b4t_fwd_axis(a, axis: int):
     r, n = a.shape
     assert n % 2 == 0, "B4T requires even dimensions"
     if n >= 256:
-        even, odd = _col_phases(a)  # MXU deinterleave (see _col_pairs)
+        even, odd = _col_phases(a)  # matrix deinterleave (_col_pairs)
     else:
         even = lax.slice(a, (0, 0), (r, n), (1, 2))
         odd = lax.slice(a, (0, 1), (r, n), (1, 2))

@@ -20,6 +20,7 @@ Usage (one process per host):
 convenience — the per-shard encodes are what each host would run).
 """
 
+import os
 from dataclasses import dataclass
 
 from ..constants import GOP_INTRA, RATE_CONTROL_CRF, div_round
@@ -116,12 +117,37 @@ def mux_shards(parts, meta: Metadata) -> bytes:
     return bytes(out)
 
 
+# launcher variables that give a process its rank among those on its
+# host: torchrun-style launchers, SLURM, Open MPI
+_LOCAL_RANK_VARS = ("LOCAL_RANK", "SLURM_LOCALID",
+                    "OMPI_COMM_WORLD_LOCAL_RANK")
+
+
+def rank_cards():
+    """Local device ids for one rank: the one card at the launcher's
+    local rank, counted among the cards the process can see
+    (CUDA_VISIBLE_DEVICES; a launcher that gives each rank its own card
+    lists one, index 0). Without this every rank on a multi-GPU host
+    would open every card and reserve its memory. Where no local rank is
+    set, None leaves the choice to JAX (JAX_LOCAL_DEVICE_IDS, its own
+    cluster detection, or every card). The ids only restrict CUDA/ROCm
+    devices, so the CPU ignores them."""
+    local_rank = next((int(os.environ[v]) for v in _LOCAL_RANK_VARS
+                       if os.environ.get(v, "").isdigit()), None)
+    if local_rank is None:
+        return None
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        return [local_rank % len(visible.split(","))]
+    return [local_rank]
+
+
 def run_distributed_shard(coordinator: str, num_processes: int,
                           process_id: int, frames_all, meta: Metadata,
                           cfg: EncoderConfig, out_path=None):
     """One process of the REAL multi-process flow (SURVEY.md §5,
     BASELINE config 5): `jax.distributed.initialize` + allgather over the
-    distributed backend (the DCN analog) for shard exchange, optimistic
+    distributed backend for shard exchange, optimistic
     stability handshake, mux on rank 0.
 
     Every rank encodes its GOP range concurrently with zero-init
@@ -139,14 +165,16 @@ def run_distributed_shard(coordinator: str, num_processes: int,
     Timing breakdown is returned via the second tuple element:
     (encode_seconds, handshake_rounds, mux_seconds) for scaling-
     efficiency reporting (the mux is the only serial work,
-    dsv_encoder.c:170-192).
+    dsv_encoder.c:170-192). On a GPU host each rank opens one card, the
+    one at the launcher's local rank (rank_cards).
     """
     import time
 
     import jax
     import numpy as np
 
-    jax.distributed.initialize(coordinator, num_processes, process_id)
+    jax.distributed.initialize(coordinator, num_processes, process_id,
+                               local_device_ids=rank_cards())
     from jax.experimental import multihost_utils
 
     from .gop import block_geometry

@@ -10,7 +10,7 @@ the full decomposition couple a frame globally, and they are tiny
 (<= (W/2^K) x (H/2^K) after K tiled levels) — the classic recipe is to
 shard the fine levels and replicate the coarse tail.
 
-TPU-native realization: frames are column-sharded over a 1-D 'tile'
+Realization: frames are column-sharded over a 1-D 'tile'
 device mesh (columns, because the packed quadrant layout keeps every
 band's columns contiguous per tile, so a level's bands stay aligned to
 the shard axis). The transform itself is the *same* integer-exact level

@@ -3,7 +3,7 @@
 The reference has no profiler; its closest analogs are the `-v`
 per-frame progress + bitrate report (dsv_main.c:516-551) and per-plane
 size logging (hzcc.c:475), which the CLI mirrors. For real performance
-work this module adds the TPU-native tool: JAX profiler traces viewable
+work this module adds the device tool: JAX profiler traces viewable
 in TensorBoard/Perfetto (device kernels, host dispatch, transfers), and
 a lightweight stage timer for frames/s accounting.
 """

@@ -35,7 +35,7 @@ def make_clip(w, h, subsamp, nframes, seed=0, motion=True):
 
 
 def make_rich_clip(w, h, subsamp, nframes, seed=0):
-    """Realistic-motion corpus (VERDICT r4 item 6): global pan over a
+    """Realistic-motion corpus: global pan over a
     textured background, two textured occluders on crossing
     trajectories (occluding the background and each other), a static
     high-texture strip (exercises stability tracking), colored chroma

@@ -71,7 +71,7 @@ def test_gopar_abr_quality_near_sequential(tmp_path):
     not __import__("os").environ.get("DSV1_SLOW_TESTS"),
     reason="300-frame clip (~minutes on CPU); set DSV1_SLOW_TESTS=1")
 def test_gopar_abr_long_clip_rate_and_quality_bounds(tmp_path):
-    """Quantitative bounds over a long clip (VERDICT r4 item 7): the
+    """Quantitative bounds over a long clip: the
     GOP-granular controller must land within +/-10% of the nominal
     bitrate and within 0.3 dB of the per-frame reference ABR law's PSNR
     at the same target. 300 frames at 128x96 keeps CPU time bounded;

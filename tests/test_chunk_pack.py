@@ -66,8 +66,11 @@ def test_dense_fallback_on_compaction_overflow():
     frames = flat + noisy  # cut at frame 2, inside the single gop-4 GOP
     cfg = EncoderConfig(quality=quality_percent(95), gop=4,
                         rc_mode=RATE_CONTROL_CRF, stable_refresh=3)
+    from dsv1_tpu.parallel import gop
+    redos = gop.EVENTS["dense_redo"]
     assert _seq(frames, cfg) == \
         encode_stream_gops(frames, Metadata(W, H, SUB), cfg)
+    assert gop.EVENTS["dense_redo"] > redos
 
 
 @pytest.mark.parametrize("gop,n", [(4, 13), (GOP_INTRA, 7)])

@@ -33,3 +33,28 @@ def test_traversal_tables_cover_every_coefficient(w, h):
         # every traversal position indexes inside the plane
         assert int(t.perm.max()) < cw * ch
         assert int(t.perm.min()) >= 0
+
+
+@pytest.mark.parametrize("w,h,nbh,nbv", [(352, 288, 22, 18),
+                                         (1920, 1080, 30, 23),
+                                         (101, 85, 7, 6)])
+def test_band_stability_gather_matches_position_table(w, h, nbh, nbv):
+    """The per-band integer gather of block stability flags
+    (hzcc._band_stable) equals the per-position block table, band by
+    band — the map the quantizer and dequantizer read."""
+    import numpy as np
+
+    from dsv1_tpu.ops import hzcc
+
+    t = hzcc.build_tables(w, h, nbh, nbv)
+    stable = np.random.default_rng(w).integers(0, 4, nbv * nbh) \
+        .astype(np.int32)
+    for k, (lvl, _, _, sh, sw, rows, cols) in enumerate(t.segs):
+        if lvl < 0:
+            continue
+        got = np.asarray(hzcc._band_stable(stable.reshape(nbv, nbh),
+                                           rows, cols))
+        lo, hi = t.seg_bounds[k], t.seg_bounds[k + 1]
+        np.testing.assert_array_equal(got.reshape(-1),
+                                      stable[t.blk[lo:hi]])
+        assert got.shape == (sh, sw)

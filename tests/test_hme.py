@@ -81,85 +81,3 @@ def test_hme_matches_reference(seed, shift):
         np.testing.assert_array_equal(
             got, ref_out[key], err_msg=f"field {key}")
     assert int(out["intra_pct"]) == ref_pct
-
-
-@pytest.mark.parametrize("seed,shift,w,h", [
-    (1, 3, 96, 80), (2, 0, 96, 80), (5, 11, 96, 80),
-    # non-block-multiple dims: partial right column AND bottom row
-    # (clipped masks, srcw14 centering, sbw/sbh sub-blocks in-kernel)
-    (3, 2, 100, 84),
-    # block-multiple width with a partial bottom row only — the 1080p
-    # production shape (1080 = 67*16 + 8)
-    (4, 5, 96, 88),
-])
-def test_hme_batch_pallas_matches_reference(seed, shift, w, h):
-    """The pallas base-kernel path (candidates + 9pt + half-pel + luma
-    HVS cascade in-kernel, ops/pallas_hme.py _base_kernel) must produce
-    the same MV field as dsv_hme. Runs the kernel in interpret mode so
-    the arbitration happens in CPU CI too."""
-    subsamp, levels, blk = SUBSAMP_420, 3, 16
-    yuv = corpus.make_clip(w, h, subsamp, 2, seed=seed)
-    fsz = w * h + 2 * (w // 2) * (h // 2)
-    f0 = fr.np_yuv_split(np.frombuffer(yuv[:fsz], np.uint8), subsamp, w, h)
-    f1 = fr.np_yuv_split(np.frombuffer(yuv[fsz:2 * fsz], np.uint8).copy(),
-                         subsamp, w, h)
-    if shift:
-        f1 = (np.roll(f0[0], shift, axis=1), f0[1], f0[2])
-
-    sp, rp, params, meta = _ref_setup(f1, f0, subsamp, levels, blk)
-    ref_out, ref_pct = oracle.run_hme(sp, rp, params, levels)
-
-    src_imgs, layouts = _pyramid_images([np.asarray(x) for x in f1],
-                                        subsamp, levels)
-    ref_imgs, _ = _pyramid_images([np.asarray(x) for x in f0],
-                                  subsamp, levels)
-    nbh, nbv = params.nblocks_h, params.nblocks_v
-    out = hme.hme_batch([a.reshape(1, -1) for a in src_imgs],
-                        [a.reshape(1, -1) for a in ref_imgs],
-                        layouts, blk, blk, nbh, nbv, subsamp, levels,
-                        interpret=True)
-    for key in ("mode", "mvx", "mvy", "submask", "lo_tex", "lo_var",
-                "high_detail"):
-        got = np.asarray(out[key][0]).reshape(-1)
-        np.testing.assert_array_equal(
-            got, ref_out[key], err_msg=f"field {key}")
-    assert int(out["intra_pct"][0]) == ref_pct
-
-
-@pytest.mark.parametrize("seed,shift,w,h", [(7, 4, 96, 80), (8, 2, 100, 84)])
-def test_hme_batch_pallas_banded_matches_reference(seed, shift, w, h,
-                                                   monkeypatch):
-    """The 4K banded base-kernel path (REF resident, SRC streamed per
-    block row — ops/pallas_hme.py _build_base_call_banded) must match
-    dsv_hme exactly. Forced on small planes by zeroing MAX_PLANE_BYTES
-    so the auto-select takes the banded branch in interpret mode."""
-    from dsv1_tpu.ops import pallas_hme
-    monkeypatch.setattr(pallas_hme, "MAX_PLANE_BYTES", 0)
-
-    subsamp, levels, blk = SUBSAMP_420, 3, 16
-    yuv = corpus.make_clip(w, h, subsamp, 2, seed=seed)
-    fsz = w * h + 2 * (w // 2) * (h // 2)
-    f0 = fr.np_yuv_split(np.frombuffer(yuv[:fsz], np.uint8), subsamp, w, h)
-    f1 = fr.np_yuv_split(np.frombuffer(yuv[fsz:2 * fsz], np.uint8).copy(),
-                         subsamp, w, h)
-    if shift:
-        f1 = (np.roll(f0[0], shift, axis=1), f0[1], f0[2])
-
-    sp, rp, params, meta = _ref_setup(f1, f0, subsamp, levels, blk)
-    ref_out, ref_pct = oracle.run_hme(sp, rp, params, levels)
-
-    src_imgs, layouts = _pyramid_images([np.asarray(x) for x in f1],
-                                        subsamp, levels)
-    ref_imgs, _ = _pyramid_images([np.asarray(x) for x in f0],
-                                  subsamp, levels)
-    nbh, nbv = params.nblocks_h, params.nblocks_v
-    out = hme.hme_batch([a.reshape(1, -1) for a in src_imgs],
-                        [a.reshape(1, -1) for a in ref_imgs],
-                        layouts, blk, blk, nbh, nbv, subsamp, levels,
-                        interpret=True)
-    for key in ("mode", "mvx", "mvy", "submask", "lo_tex", "lo_var",
-                "high_detail"):
-        got = np.asarray(out[key][0]).reshape(-1)
-        np.testing.assert_array_equal(
-            got, ref_out[key], err_msg=f"field {key}")
-    assert int(out["intra_pct"][0]) == ref_pct

@@ -55,3 +55,27 @@ def test_parallel_decode_sharded(tmp_path):
     out = b"".join(_planar(p)
                    for _, p in sorted(frames, key=lambda t: t[0]))
     assert out == golden
+
+
+def test_parallel_decode_symbols_beyond_int16():
+    """Coarse LL values above 32767 (quality 100 here; 1080p streams at
+    qp 85 too) stay on the batched device path and decode exactly like
+    the sequential decoder."""
+    from dsv1_tpu.constants import RATE_CONTROL_CRF, quality_percent
+    from dsv1_tpu.models.encoder import EncoderConfig
+    from dsv1_tpu.models.metadata import Metadata
+    from dsv1_tpu.parallel import decode as pdec
+    from dsv1_tpu.parallel import encode_stream_gops
+    from dsv1_tpu.utils import parity
+
+    w, h = 256, 192
+    frames = corpus.make_clip_frames(w, h, SUBSAMP_420, 4, seed=5)
+    cfg = EncoderConfig(quality=quality_percent(100), gop=2,
+                        rc_mode=RATE_CONTROL_CRF, stable_refresh=1)
+    stream = encode_stream_gops(frames, Metadata(w, h, SUBSAMP_420), cfg)
+    before = dict(pdec.EVENTS)
+    _, got = decode_stream_gops(stream)
+    assert pdec.EVENTS["batched"] == before.get("batched", 0) + 1
+    assert pdec.EVENTS["sequential_fallback"] == \
+        before.get("sequential_fallback", 0)
+    assert parity.same_decode(got, parity.reference_decode(stream))

@@ -109,8 +109,8 @@ def test_gop_tile_mesh_encode_byte_identical(shape):
 @pytest.mark.skipif(not __import__("os").environ.get("DSV1_SLOW_TESTS"),
                     reason="~7 min on CPU; set DSV1_SLOW_TESTS=1")
 def test_gop_tile_mesh_1080p_byte_identical():
-    """1080p tiled encode byte-identity (the VERDICT item-3 proof at the
-    tile axis's real operating point; run explicitly, too slow for the
+    """1080p tiled encode byte-identity (the tile axis at its real
+    operating point; run explicitly, too slow for the
     default CPU suite)."""
     from dsv1_tpu.constants import RATE_CONTROL_CRF, SUBSAMP_420, \
         quality_percent

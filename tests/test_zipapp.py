@@ -21,7 +21,7 @@ def test_zipapp_cli_roundtrip(tmp_path):
     sys.path.insert(0, str(ROOT / "tools"))
     try:
         import make_zipapp
-        pyz = make_zipapp.build(tmp_path / "dsv1tpu.pyz")
+        pyz = make_zipapp.build(tmp_path / "dsv1.pyz")
     finally:
         sys.path.pop(0)
 

@@ -1,4 +1,4 @@
-"""Build dist/dsv1tpu.pyz — single-file distribution of the codec.
+"""Build dist/dsv1.pyz — single-file distribution of the codec.
 
 The analog of the reference's header-only amalgamation (dsv1.h,
 reference dsv1.h:40-157): one artifact a user can ship and run with just
@@ -6,7 +6,7 @@ a Python + JAX environment. The native bit-serial helper self-builds on
 first use from package data into ~/.cache/dsv1_tpu (bits/__init__.py).
 
 Usage:  python tools/make_zipapp.py
-        python dist/dsv1tpu.pyz e -inp_in.yuv -out_out.dsv -w352 -h288 ...
+        python dist/dsv1.pyz e -inp_in.yuv -out_out.dsv -w352 -h288 ...
 """
 import shutil
 import tempfile
@@ -17,7 +17,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def build(out: Path | None = None) -> Path:
-    out = out or ROOT / "dist" / "dsv1tpu.pyz"
+    out = out or ROOT / "dist" / "dsv1.pyz"
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory() as td:
         stage = Path(td)

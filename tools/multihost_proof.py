@@ -1,7 +1,7 @@
-"""Multi-process multi-host proof + scaling report (VERDICT item 4).
+"""Multi-process multi-host proof + scaling report.
 
 Launches N real OS processes through jax.distributed.initialize (CPU
-devices — the same flow a TPU pod slice would run), each encoding its
+devices — the same flow a multi-host GPU run would take), each encoding its
 GOP shard; ranks exchange stability state + shard bytes over the
 distributed backend's allgather; rank 0 muxes. Verifies the muxed stream
 byte-identical to the single-process sequential encoder and reports the

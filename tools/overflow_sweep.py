@@ -1,6 +1,6 @@
-"""Measure the compaction-overflow cliff (VERDICT r2 item 8).
+"""Measure the compaction-overflow cliff.
 
-The GOP-parallel path ships quantized planes over the device link in
+The GOP-parallel path ships quantized planes device-to-host in
 compacted form: P planes as capped (run, value) nonzero lists, intra
 planes as dense int8 + a capped LL exception list (ops/hzcc.py).
 Overflowing a cap re-runs the whole chunk densely — fine if rare, a 2x
@@ -11,7 +11,7 @@ compute tax if routine. This sweep records, per qp on the bench corpus
   - the intra LL exception counts vs the dense-i cap
   - the resulting overflow rate per frame
 
-Output: a markdown table (paste into RESULTS.md) + the measured density
+Output: a markdown table + the measured density
 quantiles that size the adaptive cap (ops/hzcc.py sparse_cap).
 
 Run on CPU: JAX_PLATFORMS=cpu python tools/overflow_sweep.py

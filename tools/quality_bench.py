@@ -10,8 +10,8 @@ All streams are decoded with the *reference* binary, so PSNR is measured
 through the normative decoder. Prints one JSON line per row.
 
 Usage: python tools/quality_bench.py [frames] [width height] [corpus]
-(defaults 96 frames at 176x144 — QCIF keeps the CPU fallback tractable;
-pass `288 352 288 rich` on a TPU session for the full headline point on
+(defaults 96 frames at 176x144 — QCIF keeps a CPU run tractable;
+pass `288 352 288 rich` on a GPU for the full headline point on
 the realistic-motion corpus: global pan + crossing occluders + static
 textured strip, tests/corpus.py make_rich_clip)
 """
